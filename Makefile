@@ -5,13 +5,13 @@
 
 PY ?= python
 
-.PHONY: all native golden test bench bench-smoke clean
+.PHONY: all native golden test bench chip-smoke clean
 
 all: native
 
-# C++ runtime (quantize/biquad/byte-pack hot loops) -> art_tpu/native/*.so
+# C++ runtime (quantize/biquad/byte-pack hot loops) -> art_jax/native/*.so
 native:
-	$(PY) -c "import art_tpu.native as n; assert n.available(); print(n._LIB)"
+	$(PY) -c "import art_jax.native as n; assert n.available(); print(n._LIB)"
 
 # strict-IEEE golden harness from the read-only reference (out-of-tree)
 golden:
@@ -23,12 +23,11 @@ test: native
 bench: native
 	$(PY) bench.py
 
-# on-TPU Mosaic regression gate: compile+run every shipped Pallas kernel at
-# a production geometry vs a host oracle (the pytest suite runs them in
-# interpret mode only); commit the artifact each round
-bench-smoke:
-	$(PY) tools/tpu_smoke.py --save=MOSAIC_SMOKE_r04.json
+# the main path once on one GPU at full width, checked against the host
+# engines (exits nonzero with no result off a GPU)
+chip-smoke:
+	$(PY) chip_smoke.py
 
 clean:
-	rm -f art_tpu/native/*.so
+	rm -f art_jax/native/*.so
 	find . -name __pycache__ -type d -exec rm -rf {} +

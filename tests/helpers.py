@@ -4,8 +4,8 @@ import subprocess
 
 import numpy as np
 
-from art_tpu.engines.resampler import Resampler
-from art_tpu.utils.testsig import NoiseLCG
+from art_jax.engines.resampler import Resampler
+from art_jax.utils.testsig import NoiseLCG
 
 
 def parse_resample_dump(raw: bytes, chans: int, nblocks: int,
@@ -38,7 +38,7 @@ def run_golden_resample(golden_bin, *, chans, taps, filters, flags, mode,
 def compare_stream(golden_bin, *, chans, taps, filters, flags, mode, src, dst,
                    lowpass, ratio, block, nblocks, advance, atol,
                    atol_first=None, dtype=np.float32, backend="numpy"):
-    """Run the same chunked stream through C and art_tpu; assert count and
+    """Run the same chunked stream through C and art_jax; assert count and
     position parity exactly, sample parity within atol.  Returns maxdiff.
 
     ``atol_first``: optional looser bound for block 0 only — the

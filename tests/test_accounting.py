@@ -11,8 +11,8 @@ import time
 import numpy as np
 import pytest
 
-from art_tpu.core import accounting as acc
-from art_tpu.core.flags import RESAMPLE_FIXED_RATIO, RESAMPLER_FLUSHED
+from art_jax.core import accounting as acc
+from art_jax.core.flags import RESAMPLE_FIXED_RATIO, RESAMPLER_FLUSHED
 
 
 def _fuzz_states(n):
@@ -90,8 +90,8 @@ def test_dryrun_queries_vs_reference_binary(golden_bin, cfg):
     their own golden rather than the loop-oracle mirrors alone."""
     import subprocess
 
-    from art_tpu.engines.resampler import Resampler
-    from art_tpu.utils.testsig import NoiseLCG
+    from art_jax.engines.resampler import Resampler
+    from art_jax.utils.testsig import NoiseLCG
 
     (chans, taps, filters, flags, mode, src, dst, lowpass, ratio, block,
      advance) = cfg

@@ -59,7 +59,7 @@ def test_artest_matrix(args):
         pytest.skip("reference artest not built")
     ref = _parse(subprocess.run([str(ARTEST_BIN), *args],
                                 capture_output=True, text=True).stderr)
-    from art_tpu.cli import artest as at
+    from art_jax.cli import artest as at
     buf = io.StringIO()
     with redirect_stderr(buf):
         at.main(args)
@@ -90,7 +90,7 @@ def test_artest_strtol_args_and_degenerate_streams():
 
     import pytest
 
-    from art_tpu.cli import artest as at
+    from art_jax.cli import artest as at
 
     with pytest.raises(SystemExit, match="inbuffer samples must be"):
         at.main(["-s44100", "-d48000", "-b4k"])
@@ -130,7 +130,7 @@ def test_artest_lowpass_over_nyquist_clean_error():
     import io as _io
     from contextlib import redirect_stderr
 
-    from art_tpu.cli import artest as at
+    from art_jax.cli import artest as at
 
     buf = _io.StringIO()
     with redirect_stderr(buf):
@@ -149,8 +149,8 @@ DEVICE_CONFIGS = [
     # decimate tap + planar API path + extrapolated endpoints (host edges)
     ["-2", "-s96k", "-d44.1k", "-c2", "-n2", "-e", "-i", "-o16", "-v", "-x"],
     # runtime-ratio interpolated path WITHOUT -e: BatchedASRC via
-    # ASRCStreamResampler (reference artest.c:380-437; VERDICT r04
-    # item 3) — the baseline interp config class (C: -114.1 dB)
+    # ASRCStreamResampler (reference artest.c:380-437) — the baseline
+    # interp config class (C: -114.1 dB)
     ["-1", "-s44.1k", "-d48k", "-c2", "-n2", "-i"],
     # same with decimate tap + planar API path
     ["-1", "-s44.1k", "-d48k", "-c1", "-n2", "-i", "-o16", "-v"],
@@ -161,11 +161,11 @@ DEVICE_CONFIGS = [
                          ids=[" ".join(c) for c in DEVICE_CONFIGS])
 def test_artest_device_backend(args):
     """--backend=device routes the -e steady state through the
-    HybridStreamResampler (VERDICT r03 item 3): counts and input stats
+    HybridStreamResampler: counts and input stats
     must match the numpy backend exactly; the round-trip diff stays in
     the f32-matmul-floor parity class (PARITY.md row 'apply_filter hot
     loop'); decimate clip counts match exactly."""
-    from art_tpu.cli import artest as at
+    from art_jax.cli import artest as at
 
     outs = {}
     for be in ("numpy", "device"):

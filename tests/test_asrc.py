@@ -4,10 +4,15 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from art_tpu.core.flags import BLACKMAN_HARRIS, SUBSAMPLE_INTERPOLATE
-from art_tpu.engines.resampler import Resampler
-from art_tpu.parallel.asrc import BatchedASRC
-from art_tpu.utils.testsig import NoiseLCG
+from art_jax.core.flags import BLACKMAN_HARRIS, SUBSAMPLE_INTERPOLATE
+from art_jax.engines.resampler import Resampler
+from art_jax.parallel.asrc import BatchedASRC
+from art_jax.utils.testsig import NoiseLCG
+
+# float64 engine vs float64 host engine: identical positions, phases and
+# fractions; the windowed dot sums the same products in another order, so
+# samples (|x| < ~4) differ by a few ulps of the running sum
+F64_TOL = 1e-12
 
 
 def test_batched_asrc_matches_per_stream_engines():
@@ -63,7 +68,7 @@ def test_batched_asrc_sharded_over_mesh():
     """Streams shard across a device mesh with identical results (the
     scale-out story for BASELINE config 5)."""
     import jax
-    from art_tpu.parallel.sharding import make_mesh
+    from art_jax.parallel.sharding import make_mesh
     mesh = make_mesh(8, 1)
     # make_mesh names axes (streams, taps); BatchedASRC shards on "streams"
     lcg = NoiseLCG()
@@ -119,16 +124,16 @@ def test_batched_asrc_checkpoint_resume():
 
 
 def test_batched_asrc_dense_sharded_matches_single_device():
-    """The dense kernel runs under shard_map (one instance per device on
-    its local stream block); results match the single-device dense engine
-    and shards stay distributed."""
-    from art_tpu.parallel.sharding import make_mesh
+    """The step runs under shard_map (one instance per device on its local
+    block of 8 streams); results match the single-device engine and shards
+    stay distributed."""
+    from art_jax.parallel.sharding import make_mesh
     mesh = make_mesh(8, 1)
     lcg = NoiseLCG()
     rng = np.random.default_rng(8)
     S = 64                              # 8 local streams per device
-    a = BatchedASRC(S, 48, 64, kernel="dense", mesh=mesh)
-    b = BatchedASRC(S, 48, 64, kernel="dense")
+    a = BatchedASRC(S, 48, 64, mesh=mesh)
+    b = BatchedASRC(S, 48, 64)
     a.advance_position(24.0)
     b.advance_position(24.0)
     for _ in range(3):
@@ -185,31 +190,28 @@ def test_batched_asrc_chunk_size_invariance():
 
 def test_asrc_step_compilation_stable_under_drifting_ratios():
     """Per-call ratio drift must not grow the jit cache: the output
-    capacity is bucketed to the kernel tile, so the compiled step is
-    reused (unbucketed k_max caused a recompile per distinct max ratio —
-    0.9 M out/s sustained on the remote-compile deployment)."""
-    from art_tpu.ops.pallas_kernels import asrc_step_dense
-    if not hasattr(asrc_step_dense, "_cache_size"):
-        pytest.skip("jit cache introspection unavailable")
+    capacity is bucketed to the step tile, so the compiled step is reused
+    (unbucketed k_max recompiles per distinct max ratio)."""
+    from art_jax.parallel.asrc import _asrc_step
     rng = np.random.default_rng(0)
-    eng = BatchedASRC(8, 48, 64, kernel="dense")
+    eng = BatchedASRC(8, 48, 64)
     eng.advance_position(24.0)
     x = jnp.asarray(rng.standard_normal((8, 512)).astype(np.float32))
     eng.process(x, 1.0 + 0.003 * np.arange(8))
-    base = asrc_step_dense._cache_size()
+    base = _asrc_step._cache_size()
     for it in range(5):
         ratios = 1.0 + 0.01 * np.sin(np.arange(8) + it * 0.7)
         eng.process(x, ratios)
-    assert asrc_step_dense._cache_size() == base
+    assert _asrc_step._cache_size() == base
 
 
 def test_batched_asrc_kernel_chain_matches_host_oracle():
-    """The auto kernel chain (hankel for near-1 ratios -> dense -> xla)
-    picks a formulation per call; every leg must match the per-stream host
-    engine.  Ratios chosen to force each leg."""
+    """Ratio regimes from tight drift around 1.0 through wide drift,
+    halving and 5x decimation, in one engine: every call must match the
+    per-stream host engine in counts, samples and positions."""
     S, taps, filters = 8, 48, 64
     lcg = NoiseLCG()
-    b = BatchedASRC(S, taps, filters, kernel="auto")
+    b = BatchedASRC(S, taps, filters)
     b.advance_position(24.0)
     singles = []
     for _ in range(S):
@@ -219,11 +221,11 @@ def test_batched_asrc_kernel_chain_matches_host_oracle():
         r.advance_position(24.0)
         singles.append(r)
     legs = [
-        1.0 + 0.0005 * np.arange(S),          # hankel narrow (tight drift)
-        1.0 / (1.0 + 0.15 * np.sin(np.arange(S) + 1.0)),  # hankel WIDE tier
-        np.full(S, 0.5) + 0.01 * np.arange(S),  # dense (hankel bounds fail)
-        np.full(S, 0.2),                      # xla (dense bound fails)
-        1.0 - 0.0005 * np.arange(S),          # back to hankel
+        1.0 + 0.0005 * np.arange(S),          # tight drift
+        1.0 / (1.0 + 0.15 * np.sin(np.arange(S) + 1.0)),  # wide drift
+        np.full(S, 0.5) + 0.01 * np.arange(S),  # about an octave down
+        np.full(S, 0.2),                      # 5x decimation
+        1.0 - 0.0005 * np.arange(S),          # back to tight drift
     ]
     for ratios in legs:
         x = lcg.fill(S * 512).reshape(S, 512)
@@ -239,21 +241,19 @@ def test_batched_asrc_kernel_chain_matches_host_oracle():
 
 
 def test_asrc_hankel_compilation_stable_under_drifting_ratios():
-    """The Hankel step's static capacity buckets like the dense step: a
+    """The float64 engine's capacity buckets like the float32 one: a
     drifting-ratio serving loop must reuse one compiled specialization."""
-    from art_tpu.ops.pallas_kernels import asrc_step_hankel
-    if not hasattr(asrc_step_hankel, "_cache_size"):
-        pytest.skip("jit cache introspection unavailable")
+    from art_jax.parallel.asrc import _asrc_step
     rng = np.random.default_rng(0)
-    eng = BatchedASRC(8, 48, 64, kernel="hankel")
+    eng = BatchedASRC(8, 48, 64, dtype=np.float64)
     eng.advance_position(24.0)
-    x = jnp.asarray(rng.standard_normal((8, 512)).astype(np.float32))
+    x = jnp.asarray(rng.standard_normal((8, 512)))
     eng.process(x, 1.0 + 0.003 * np.arange(8))
-    base = asrc_step_hankel._cache_size()
+    base = _asrc_step._cache_size()
     for it in range(5):
         ratios = 1.0 + 0.01 * np.sin(np.arange(8) + it * 0.7)
         eng.process(x, ratios)
-    assert asrc_step_hankel._cache_size() == base
+    assert _asrc_step._cache_size() == base
 
 
 def test_batched_asrc_staggered_flush_matches_host_engines():
@@ -323,13 +323,9 @@ def test_batched_asrc_staggered_flush_matches_host_engines():
 
 
 def test_batched_asrc_f64_ds_kernel_matches_host():
-    """The f64 flagship path (double-single paired-f32 Hankel kernel):
-    counts and positions exact vs per-stream f64 host engines; samples
-    compared at the f32-class bound ON CPU ONLY because XLA:CPU (which
-    backs pallas interpret mode) reassociates the error-free transforms
-    unpredictably — on real Mosaic the kernel measures ~1e-11 relative of
-    the f64 oracle (tools/exp_ds_hankel.py, run per round via the TPU
-    smoke; see PARITY.md)."""
+    """The f64 engine (native float64 positions and dots): counts and
+    positions exact vs per-stream f64 host engines, samples at the f64
+    floor (F64_TOL: only the summation order over taps differs)."""
     S, taps, filters = 8, 48, 64
     lcg = NoiseLCG()
     rng = np.random.default_rng(5)
@@ -351,15 +347,15 @@ def test_batched_asrc_f64_ds_kernel_matches_host():
             ho, res = singles[s].process(x[s:s + 1], 512, 2000,
                                          float(ratios[s]))
             assert res.output_generated == Ks[s]
-            assert np.abs(ho[0] - out[s, :Ks[s]]).max() < 2e-6
+            assert np.abs(ho[0] - out[s, :Ks[s]]).max() < F64_TOL
             assert b.get_position()[s] == singles[s].get_position()
 
 
 def test_batched_asrc_f64_ds_sharded_matches_single_device():
-    """The f64 double-single Hankel step under shard_map (one kernel
-    instance per device on its local stream block): identical results to
-    the single-device f64 engine over the virtual 8-device mesh."""
-    from art_tpu.parallel.sharding import make_mesh
+    """The f64 step under shard_map (one instance per device on its local
+    stream block): results equal to the single-device f64 engine at the
+    f64 floor over the virtual 8-device mesh."""
+    from art_jax.parallel.sharding import make_mesh
     mesh = make_mesh(8, 1)
     lcg = NoiseLCG()
     rng = np.random.default_rng(12)
@@ -375,14 +371,13 @@ def test_batched_asrc_f64_ds_sharded_matches_single_device():
         ob, Kb = b.process(jnp.asarray(x), ratios)
         assert np.array_equal(Ka, Kb)
         np.testing.assert_allclose(np.asarray(oa), np.asarray(ob),
-                                   atol=2e-6)
+                                   atol=F64_TOL)
     assert len(a.hist.sharding.device_set) == 8
 
 
 def test_batched_asrc_f64_flush_matches_host_engines():
-    """Per-stream flush on the f64 engine (ds-kernel family): counts and
-    frozen positions exact vs host f64 engines; samples at the CPU test
-    bound (interpret-mode ds arithmetic is f32-class off-chip, PARITY.md)."""
+    """Per-stream flush on the f64 engine: counts and frozen positions
+    exact vs host f64 engines; samples at the f64 floor."""
     S, taps, filters = 8, 48, 64
     lcg = NoiseLCG()
     rng = np.random.default_rng(11)
@@ -415,7 +410,7 @@ def test_batched_asrc_f64_flush_matches_host_engines():
             continue
         ho, res = singles[s].process(None, -1, 2000, float(fr[s]))
         assert res.output_generated == fKs[s]
-        assert np.abs(ho[0] - fout[s, :fKs[s]]).max() < 1e-6
+        assert np.abs(ho[0] - fout[s, :fKs[s]]).max() < F64_TOL
         assert pos[s] == singles[s].get_position()
 
 
@@ -428,7 +423,7 @@ def test_asrc_slide_tie_boundary_counts():
     (BatchedASRC._ring_ok) — the entry-coordinate form emitted 1394
     instead of 1395 here.  Counts and positions vs the host engine
     (itself golden-tested on this config) must match exactly."""
-    from art_tpu.utils.testsig import NoiseLCG
+    from art_jax.utils.testsig import NoiseLCG
 
     taps, filters = 88, 67
     ratio = 48000 / 44100
@@ -482,12 +477,11 @@ def test_asrc_exactly_full_requested_capacity_ok():
 
 
 def test_asrc_latched_stream_ratio_is_inert():
-    """A flushed (latched) stream's caller-supplied ratio must not steer
-    kernel selection or inflate the auto capacity estimate: the stale
-    value is dead weight (its Ks is forced to 0 and its position frozen).
-    Before the fix, ratios[flushed]=50 ballooned k_max ~50x (every call a
-    fresh compile bucket) and a stale out-of-Hankel-bounds ratio dropped
-    the whole live batch to the XLA fallback path."""
+    """A flushed (latched) stream's caller-supplied ratio must not inflate
+    the auto capacity estimate: the stale value is dead weight (its Ks is
+    forced to 0 and its position frozen).  Before the fix,
+    ratios[flushed]=50 ballooned k_max ~50x (every call a fresh compile
+    bucket)."""
     S, taps, filters = 4, 48, 48
     lcg = NoiseLCG()
     b = BatchedASRC(S, taps, filters)
@@ -533,8 +527,8 @@ def test_asrc_latched_stream_ratio_is_inert():
 
 def test_asrc_flush_nothing_to_emit_skips_dispatch():
     """flush() with an all-masked-out (or all-latched) batch must not
-    dispatch a device step: an unseen k_max bucket would pay a remote
-    compile for zeros.  The output is all-zero with Ks == 0, shaped to
+    dispatch a device step: an unseen k_max bucket would pay a compile
+    for zeros.  The output is all-zero with Ks == 0, shaped to
     req_k_max when one is given."""
     S = 4
     b = BatchedASRC(S, 48, 48)
@@ -564,11 +558,11 @@ def test_asrc_flush_nothing_to_emit_skips_dispatch():
 
 def test_asrc_stream_adapter_matches_host_engine():
     """ASRCStreamResampler (the artest --backend=device runtime-ratio
-    path; VERDICT r04 item 3): counts/positions exact vs the host
+    path): counts/positions exact vs the host
     interpolated engine across drifting-ratio chunks of varying size,
     samples at the f32 kernel floor, flush counts exact, and the engine
     surface (queries, planar form) matches the host contract."""
-    from art_tpu.parallel.asrc import ASRCStreamResampler
+    from art_jax.parallel.asrc import ASRCStreamResampler
 
     rng = np.random.default_rng(5)
     ch, taps, filters = 2, 64, 128
@@ -615,8 +609,8 @@ def test_asrc_stream_adapter_matches_host_engine():
 
 
 def test_asrc_stream_adapter_guards():
-    from art_tpu.core.flags import EXTRAPOLATE_ENDPOINTS
-    from art_tpu.parallel.asrc import ASRCStreamResampler
+    from art_jax.core.flags import EXTRAPOLATE_ENDPOINTS
+    from art_jax.parallel.asrc import ASRCStreamResampler
     with pytest.raises(ValueError, match="SUBSAMPLE_INTERPOLATE"):
         ASRCStreamResampler(2, 64, 128, 0.0, BLACKMAN_HARRIS)
     with pytest.raises(ValueError, match="EXTRAPOLATE"):
@@ -633,7 +627,7 @@ def test_batched_asrc_lowpass_ratio_bank():
     """lowpass_ratio folds into the ASRC bank exactly like the fixed
     engines (reference resampler.c:1111): a lowpassed BatchedASRC
     matches a lowpassed host engine at the same ratio."""
-    from art_tpu.parallel.asrc import ASRCStreamResampler
+    from art_jax.parallel.asrc import ASRCStreamResampler
 
     ch, taps, filters = 1, 48, 64
     IBL = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS

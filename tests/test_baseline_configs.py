@@ -8,8 +8,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from art_tpu.io import wavfile
-from art_tpu.utils.testsig import NoiseLCG
+from art_jax.io import wavfile
+from art_jax.utils.testsig import NoiseLCG
 
 REF = Path("/root/reference")
 
@@ -44,7 +44,7 @@ def _write_wav(path, frames, bits, rate, mask=None):
 
 
 def _artest(args):
-    from art_tpu.cli import artest as at
+    from art_jax.cli import artest as at
     buf = io.StringIO()
     with redirect_stderr(buf):
         at.main(args)
@@ -85,7 +85,7 @@ def test_config4_5_1ch_art64_biquad(art64_ref, tmp_path):
     subprocess.run([str(art64_ref), "-r44.1k", "-p", "-y", "-q",
                     str(wav_in), str(ref_out)], check=True,
                    capture_output=True)
-    from art_tpu.cli import art as artcli
+    from art_jax.cli import art as artcli
     rc = artcli.main(["--f64", "-r44.1k", "-p", "-y", "-q", str(wav_in),
                       str(my_out)])
     assert rc == 0
@@ -106,7 +106,7 @@ def test_config4_5_1ch_art64_biquad(art64_ref, tmp_path):
 def test_config5_batched_asrc_drifting():
     """256 concurrent streams, drifting ratio ~1.0, exact phase query."""
     import jax.numpy as jnp
-    from art_tpu.parallel.asrc import BatchedASRC
+    from art_jax.parallel.asrc import BatchedASRC
     S = 256
     b = BatchedASRC(S, 48, 64)
     b.advance_position(24.0)

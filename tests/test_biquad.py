@@ -5,8 +5,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from art_tpu.engines.biquad import (Biquad, biquad_highpass, biquad_lowpass)
-from art_tpu.utils.testsig import NoiseLCG
+from art_jax.engines.biquad import (Biquad, biquad_highpass, biquad_lowpass)
+from art_jax.utils.testsig import NoiseLCG
 
 
 @pytest.mark.parametrize("mode,freq", [("lowpass", 0.2), ("lowpass", 0.45),
@@ -42,7 +42,7 @@ def test_fused_cascade_bit_exact(dtype, ch):
     """The fused native cascade (one buffer pass, both stages per sample)
     is bit-identical to chaining apply_buffer per stage, including streaming
     state across chunk boundaries and mixed designs/orders."""
-    from art_tpu.engines.biquad import apply_cascade
+    from art_jax.engines.biquad import apply_cascade
     designs = [biquad_lowpass(0.41), biquad_highpass(0.07)]
     fa = [Biquad.init(c, 1.0, channels=ch, dtype=dtype) for c in designs]
     fb = [Biquad.init(c, 1.0, channels=ch, dtype=dtype) for c in designs]
@@ -76,7 +76,7 @@ def test_associative_scan_matches_sequential():
     """The device parallel-scan biquad (O(log n) depth) agrees with the
     sequential reference path within the f32 floor, including carried state
     across blocks."""
-    from art_tpu.ops.biquad_kernel import biquad_apply_buffer_assoc
+    from art_jax.ops.biquad_kernel import biquad_apply_buffer_assoc
     x = NoiseLCG().fill(8000).reshape(4000, 2)
     coeffs = biquad_lowpass(0.23)
     f1 = Biquad.init(coeffs, 1.0, 2)
@@ -86,7 +86,7 @@ def test_associative_scan_matches_sequential():
         y_dev = biquad_apply_buffer_assoc(f2, x.copy())
         assert np.abs(y_seq - y_dev).max() < 3e-7
     # 4th-order (ATH-like) coefficients stay stable through the scan
-    from art_tpu.engines.biquad import BiquadCoefficients
+    from art_jax.engines.biquad import BiquadCoefficients
     c4 = BiquadCoefficients(a0=2.2061, a1=0.606, a2=-0.2524, a3=-0.0737,
                             b1=1.0587, b2=0.0676, b3=-0.6054, b4=-0.2738)
     g1 = Biquad.init(c4, 1.0, 1)
@@ -115,7 +115,7 @@ def test_masked_block_iir_ragged_K_and_tables():
     precomputed-tables path is bitwise equal to the in-graph build."""
     import jax.numpy as jnp
 
-    from art_tpu.ops.biquad_kernel import assoc_core_masked, iir_tables
+    from art_jax.ops.biquad_kernel import assoc_core_masked, iir_tables
 
     coeffs = biquad_lowpass(0.23)
     n, S = 700, 3
@@ -161,7 +161,7 @@ def test_assoc_core_full_matches_masked_bitwise():
     f32 and f64."""
     import jax.numpy as jnp
 
-    from art_tpu.ops.biquad_kernel import (assoc_core_full,
+    from art_jax.ops.biquad_kernel import (assoc_core_full,
                                            assoc_core_masked, iir_tables)
     coeffs = biquad_lowpass(0.31)
     for dt in (np.float32, np.float64):
@@ -189,8 +189,8 @@ def test_combined_order4_matches_cascade():
     history)."""
     import jax.numpy as jnp
 
-    from art_tpu.engines.biquad import Biquad, biquad_lowpass
-    from art_tpu.ops.biquad_kernel import DeviceBiquadCascade
+    from art_jax.engines.biquad import Biquad, biquad_lowpass
+    from art_jax.ops.biquad_kernel import DeviceBiquadCascade
 
     coeffs = biquad_lowpass(0.45 * 44100 / 48000)
     ch = 6
@@ -225,14 +225,14 @@ def test_combined_order4_matches_cascade():
 @pytest.mark.parametrize("combined", [False, True])
 def test_refined_solve_matches_exact(combined):
     """DeviceBiquadCascade(refine=True): the mixed-precision iterative
-    refinement solve (f32 MXU block solves + f64 pointwise residuals,
+    refinement solve (f32 block solves + f64 pointwise residuals,
     _iir_y_refined) stays in the exact emulated-f64 solve's own accuracy
     class over streaming ragged chunks (~5e-15 vs a sequential oracle
-    with 2 passes; one pass reaches ~3e-12, tools/exp_iir_refine.py)."""
+    with 2 passes; one pass reaches ~3e-12)."""
     import jax.numpy as jnp
 
-    from art_tpu.engines.biquad import Biquad, biquad_lowpass
-    from art_tpu.ops.biquad_kernel import DeviceBiquadCascade
+    from art_jax.engines.biquad import Biquad, biquad_lowpass
+    from art_jax.ops.biquad_kernel import DeviceBiquadCascade
 
     coeffs = biquad_lowpass(0.45 * 44100 / 48000)
     ch = 6
@@ -269,8 +269,8 @@ def test_masked_T_matches_masked_bitwise():
     K < 4 (boundary-history picks) and block-boundary K."""
     import jax.numpy as jnp
 
-    from art_tpu.engines.biquad import Biquad, biquad_lowpass
-    from art_tpu.ops.biquad_kernel import (assoc_core_masked,
+    from art_jax.engines.biquad import Biquad, biquad_lowpass
+    from art_jax.ops.biquad_kernel import (assoc_core_masked,
                                            assoc_core_masked_T,
                                            combine_biquads, iir_tables)
 

@@ -3,7 +3,7 @@ decimator/biquad/stretch/extrapolator names)."""
 
 import numpy as np
 
-from art_tpu import capi
+from art_jax import capi
 
 
 def test_resampler_c_names_roundtrip():

@@ -7,11 +7,11 @@ import subprocess
 import numpy as np
 import pytest
 
-from art_tpu.core.flags import (DITHER_FLAT, DITHER_HIGHPASS, DITHER_LOWPASS,
+from art_jax.core.flags import (DITHER_FLAT, DITHER_HIGHPASS, DITHER_LOWPASS,
                                 SHAPING_1ST_ORDER, SHAPING_2ND_ORDER,
                                 SHAPING_3RD_ORDER, SHAPING_ATH_CURVE)
-from art_tpu.engines.decimator import Decimator, float_integers
-from art_tpu.utils.testsig import NoiseLCG
+from art_jax.engines.decimator import Decimator, float_integers
+from art_jax.utils.testsig import NoiseLCG
 
 D, S = DITHER_HIGHPASS, SHAPING_ATH_CURVE
 

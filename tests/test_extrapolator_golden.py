@@ -6,8 +6,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from art_tpu.engines import extrapolator as ex
-from art_tpu.utils.testsig import NoiseLCG
+from art_jax.engines import extrapolator as ex
+from art_jax.utils.testsig import NoiseLCG
 
 CASES = [
     ("fwd", 190, 190, "sine"), ("fwd", 64, 32, "noise"),
@@ -67,7 +67,7 @@ def test_native_matches_host_bitexact(dt):
     """The native-runtime descent (art_extrapolate_*) is bit-identical to
     the numpy host path on every signal class, including the signed-zero
     prediction tail on silence (the strict cumsum seeds from element 0)."""
-    from art_tpu import native
+    from art_jax import native
     if not native.available():
         pytest.skip("native runtime unavailable")
     rng = np.random.default_rng(5)
@@ -88,7 +88,7 @@ def test_native_matches_host_bitexact(dt):
 
 
 def test_native_fit_matches_host():
-    from art_tpu import native
+    from art_jax import native
     if not native.available():
         pytest.skip("native runtime unavailable")
     x = _signal(256, "sine")

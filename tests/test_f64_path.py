@@ -6,11 +6,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from art_tpu.core.flags import (BLACKMAN_HARRIS, DITHER_HIGHPASS,
+from art_jax.core.flags import (BLACKMAN_HARRIS, DITHER_HIGHPASS,
                                 INCLUDE_LOWPASS, SHAPING_ATH_CURVE,
                                 SUBSAMPLE_INTERPOLATE)
-from art_tpu.engines.decimator import Decimator
-from art_tpu.utils.testsig import NoiseLCG
+from art_jax.engines.decimator import Decimator
+from art_jax.utils.testsig import NoiseLCG
 
 IBL = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS | INCLUDE_LOWPASS
 
@@ -43,8 +43,8 @@ def test_decimator_f64_bit_exact(golden_bin64, backend):
 
 def test_art_cli_f64_output(tmp_path):
     """--f64 writes a valid 64-bit float WAV readable back."""
-    from art_tpu.cli import art as artcli
-    from art_tpu.io import wavfile
+    from art_jax.cli import art as artcli
+    from art_jax.io import wavfile
     n = 8000
     x = NoiseLCG().fill(n * 2).reshape(n, 2)
     ints = np.clip(np.round(x.astype(np.float64) * 32768.0),

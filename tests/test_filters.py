@@ -5,9 +5,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from art_tpu.core.filters import (FixedRatioPlan, make_filter_bank,
+from art_jax.core.filters import (FixedRatioPlan, make_filter_bank,
                                   plan_fixed_ratio)
-from art_tpu.core.flags import (INCLUDE_LOWPASS, NO_FILTER_REDUCTION,
+from art_jax.core.flags import (INCLUDE_LOWPASS, NO_FILTER_REDUCTION,
                                 RESAMPLER_SNAP_OFFSET, SUBSAMPLE_INTERPOLATE)
 
 CASES = [

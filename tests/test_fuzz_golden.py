@@ -12,11 +12,11 @@ import subprocess
 import numpy as np
 import pytest
 
-from art_tpu.core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
+from art_jax.core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
                                 INCLUDE_LOWPASS, NO_FILTER_REDUCTION,
                                 SUBSAMPLE_INTERPOLATE)
-from art_tpu.engines.resampler import Resampler
-from art_tpu.utils.testsig import NoiseLCG
+from art_jax.engines.resampler import Resampler
+from art_jax.utils.testsig import NoiseLCG
 
 from helpers import compare_stream
 
@@ -26,11 +26,11 @@ RATE_PAIRS = [(44100, 48000), (48000, 44100), (96000, 44100), (8000, 32000),
 
 @pytest.mark.parametrize("seed", list(range(12)) + [500, 507, 513])
 def test_fuzz_decimator_bit_exact(golden_bin, seed):
-    from art_tpu.core.flags import (DITHER_FLAT, DITHER_HIGHPASS,
+    from art_jax.core.flags import (DITHER_FLAT, DITHER_HIGHPASS,
                                     DITHER_LOWPASS, SHAPING_1ST_ORDER,
                                     SHAPING_2ND_ORDER, SHAPING_3RD_ORDER,
                                     SHAPING_ATH_CURVE)
-    from art_tpu.engines.decimator import Decimator
+    from art_jax.engines.decimator import Decimator
     rng = np.random.default_rng(2000 + seed)
     chans = int(rng.integers(1, 9))
     bits = int(rng.integers(4, 25))
@@ -94,7 +94,7 @@ def test_fuzz_stream_parity(golden_bin, seed):
     if flags & SUBSAMPLE_INTERPOLATE and rng.random() < 0.5:
         # fractional advance is only legal when the final config keeps
         # interpolation (a successful fixed-ratio reduction disables it)
-        from art_tpu.core.filters import plan_fixed_ratio
+        from art_jax.core.filters import plan_fixed_ratio
         keeps_interp = (mode == 0) or bool(
             plan_fixed_ratio(taps, filters, src, dst, lowpass, flags).flags
             & SUBSAMPLE_INTERPOLATE)
@@ -162,7 +162,7 @@ def test_fuzz_stretch_bit_exact(seed, tmp_path):
     import shutil
     from pathlib import Path
 
-    from art_tpu.io import wavfile
+    from art_jax.io import wavfile
 
     art_bin = Path("/tmp/art_golden/art_ref")
     ref = Path("/root/reference")
@@ -202,7 +202,7 @@ def test_fuzz_stretch_bit_exact(seed, tmp_path):
     r = subprocess.run([str(art_bin), f"--tempo={tempo!r}", "-y", "-q",
                         str(wav_in), str(ref_out)], capture_output=True)
     assert r.returncode == 0, r.stderr.decode()
-    from art_tpu.cli import art as art_cli
+    from art_jax.cli import art as art_cli
     rc = art_cli.main([f"--tempo={tempo!r}", "-y", "-q", str(wav_in),
                        str(my_out)])
     assert not rc
@@ -214,7 +214,7 @@ def test_fuzz_stretch_bit_exact(seed, tmp_path):
 def test_fuzz_biquad_bit_exact(golden_bin, seed):
     """Random cutoff/length cascaded biquads, bit-exact vs the reference
     (reference biquad.c:106-163)."""
-    from art_tpu.engines.biquad import (Biquad, biquad_highpass,
+    from art_jax.engines.biquad import (Biquad, biquad_highpass,
                                         biquad_lowpass)
     rng = np.random.default_rng(4000 + seed)
     mode = "highpass" if rng.random() < 0.5 else "lowpass"
@@ -237,7 +237,7 @@ def test_fuzz_extrapolator_bit_exact(golden_bin, seed):
     """Random LPC endpoint extrapolations (direction, history length,
     extrapolation length, signal class), bit-exact vs the reference
     coordinate descent (reference extrapolator.c:85-230)."""
-    from art_tpu.engines.extrapolator import (extrapolate_forward,
+    from art_jax.engines.extrapolator import (extrapolate_forward,
                                               extrapolate_reverse)
     rng = np.random.default_rng(5000 + seed)
     mode = "rev" if rng.random() < 0.5 else "fwd"
@@ -301,8 +301,8 @@ def test_fuzz_checkpoint_resume(seed):
     """Checkpoint/resume: saving state_dict at a random mid-stream point and
     resuming in a fresh engine must reproduce the unsplit stream bit-exactly
     (resampler AND decimator)."""
-    from art_tpu.core.flags import (DITHER_HIGHPASS, SHAPING_ATH_CURVE)
-    from art_tpu.engines.decimator import Decimator
+    from art_jax.core.flags import (DITHER_HIGHPASS, SHAPING_ATH_CURVE)
+    from art_jax.engines.decimator import Decimator
 
     rng = np.random.default_rng(7000 + seed)
     taps = int(rng.integers(2, 20)) * 4
@@ -356,11 +356,11 @@ def test_fuzz_checkpoint_resume(seed):
 def test_fuzz_decimator_f64_bit_exact(golden_bin64, seed):
     """Randomized float64 data-path decimation, bit-exact vs the strict
     ART64 reference build across all three backends."""
-    from art_tpu.core.flags import (DITHER_FLAT, DITHER_HIGHPASS,
+    from art_jax.core.flags import (DITHER_FLAT, DITHER_HIGHPASS,
                                     DITHER_LOWPASS, SHAPING_1ST_ORDER,
                                     SHAPING_2ND_ORDER, SHAPING_3RD_ORDER,
                                     SHAPING_ATH_CURVE)
-    from art_tpu.engines.decimator import Decimator
+    from art_jax.engines.decimator import Decimator
     rng = np.random.default_rng(8000 + seed)
     chans = int(rng.integers(1, 9))
     bits = int(rng.integers(4, 25))

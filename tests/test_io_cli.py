@@ -8,8 +8,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from art_tpu.io import wavfile
-from art_tpu.utils.testsig import NoiseLCG
+from art_jax.io import wavfile
+from art_jax.utils.testsig import NoiseLCG
 
 REF = Path("/root/reference")
 
@@ -84,11 +84,11 @@ def test_wav_skips_unknown_chunks():
 
 # ------------------------------------------------------------------- native
 def test_native_runtime_available_and_bit_exact():
-    from art_tpu import native
+    from art_jax import native
     if not native.available():
         pytest.skip("no compiler for native runtime")
-    from art_tpu.core.flags import DITHER_HIGHPASS, SHAPING_ATH_CURVE
-    from art_tpu.engines.decimator import Decimator
+    from art_jax.core.flags import DITHER_HIGHPASS, SHAPING_ATH_CURVE
+    from art_jax.engines.decimator import Decimator
     x = NoiseLCG().fill(4000).reshape(2000, 2)
     flags = DITHER_HIGHPASS | SHAPING_ATH_CURVE
     pn, cn = Decimator(2, 16, 2, 2.5, 44100, flags,
@@ -100,10 +100,10 @@ def test_native_runtime_available_and_bit_exact():
 
 
 def test_native_biquad_bit_exact():
-    from art_tpu import native
+    from art_jax import native
     if not native.available():
         pytest.skip("no compiler for native runtime")
-    from art_tpu.engines.biquad import Biquad, biquad_lowpass
+    from art_jax.engines.biquad import Biquad, biquad_lowpass
     x = NoiseLCG().fill(3000).reshape(1500, 2)
     c = biquad_lowpass(0.3)
     f1, f2 = Biquad.init(c, 1.0, 2), Biquad.init(c, 1.0, 2)
@@ -114,7 +114,7 @@ def test_native_biquad_bit_exact():
 
 # ------------------------------------------------------------------ stretch
 def test_stretch_ratio_accuracy():
-    from art_tpu.engines.stretch import Stretcher
+    from art_jax.engines.stretch import Stretcher
     x = NoiseLCG().fill(44100 * 2).reshape(-1, 2)
     for ratio in (0.5, 0.8, 1.25, 2.0):
         s = Stretcher(44100 // 350, 44100 // 50, 2, 0)
@@ -125,8 +125,8 @@ def test_stretch_ratio_accuracy():
 
 
 def test_stretch_dual_extends_range():
-    from art_tpu.core.flags import STRETCH_DUAL_FLAG
-    from art_tpu.engines.stretch import Stretcher
+    from art_jax.core.flags import STRETCH_DUAL_FLAG
+    from art_jax.engines.stretch import Stretcher
     x = NoiseLCG().fill(44100).reshape(-1, 1)
     s = Stretcher(44100 // 350, 44100 // 50, 1, STRETCH_DUAL_FLAG)
     out = s.process(x.reshape(-1), x.shape[0], 3.0)
@@ -137,7 +137,7 @@ def test_stretch_dual_extends_range():
 
 
 def test_stretch_unity_passthrough_exact():
-    from art_tpu.engines.stretch import Stretcher
+    from art_jax.engines.stretch import Stretcher
     x = NoiseLCG().fill(20000).reshape(-1, 2)
     s = Stretcher(44100 // 350, 44100 // 50, 2, 0)
     out = s.process(x.reshape(-1), x.shape[0], 1.0)
@@ -148,7 +148,7 @@ def test_stretch_unity_passthrough_exact():
 
 # ---------------------------------------------------------------------- CLI
 def _run_art_cli(args):
-    from art_tpu.cli import art as artcli
+    from art_jax.cli import art as artcli
     return artcli.main(args)
 
 
@@ -248,7 +248,7 @@ def test_artest_cli_input_stats_bit_identical(art_ref):
     binary exactly — the noise source and stats are bit-exact ports."""
     import io as _io
     from contextlib import redirect_stderr
-    from art_tpu.cli import artest as at
+    from art_jax.cli import artest as at
     artest_bin = Path("/tmp/refbuild/artest")
     if not artest_bin.exists():
         pytest.skip("reference artest not built")
@@ -269,7 +269,7 @@ def test_artest_planar_vs_interleaved_identical():
     interleaved paths must produce identical stats/checksums."""
     import io as _io
     from contextlib import redirect_stderr
-    from art_tpu.cli import artest as at
+    from art_jax.cli import artest as at
 
     def run(args):
         buf = _io.StringIO()
@@ -291,7 +291,7 @@ def test_artest_tone_input_bit_identical(art_ref, args):
     matches the C harness bit-for-bit, including the fade windows."""
     import io as _io
     from contextlib import redirect_stderr
-    from art_tpu.cli import artest as at
+    from art_jax.cli import artest as at
     artest_bin = Path("/tmp/refbuild/artest")
     if not artest_bin.exists():
         pytest.skip("reference artest not built")
@@ -311,7 +311,7 @@ def test_art_cli_error_paths_match_reference(art_ref, tmp_path):
     one-line message (no traceback) — reference art.c:521-571 behaviors."""
     import struct
 
-    from art_tpu.cli import art as art_cli
+    from art_jax.cli import art as art_cli
 
     cases = {}
     p = tmp_path / "notriff.wav"
@@ -392,8 +392,8 @@ def test_cli_device_pipeline_resample_decimate(tmp_path):
 
     import numpy as np
 
-    from art_tpu.cli import art
-    from art_tpu.io import wavfile
+    from art_jax.cli import art
+    from art_jax.io import wavfile
 
     rng = np.random.default_rng(5)
     n = 44100
@@ -441,15 +441,15 @@ def test_cli_device_pipeline_resample_decimate(tmp_path):
 
 
 def test_cli_f64_device_backend_byte_identical(tmp_path):
-    """--f64 --backend=device: the float64 device data path (double-double
-    on real TPUs, ~1e-15 vs host) quantizes to byte-identical output."""
+    """--f64 --backend=device: the float64 device data path (~1e-15 vs
+    host) quantizes to byte-identical output."""
     import io as _io
     from contextlib import redirect_stderr
 
     import numpy as np
 
-    from art_tpu.cli import art
-    from art_tpu.io import wavfile
+    from art_jax.cli import art
+    from art_jax.io import wavfile
 
     rng = np.random.default_rng(11)
     n = 44100
@@ -482,8 +482,8 @@ def test_cli_device_post_filter_stays_on_device(tmp_path):
 
     import numpy as np
 
-    from art_tpu.cli import art
-    from art_tpu.io import wavfile
+    from art_jax.cli import art
+    from art_jax.io import wavfile
 
     rng = np.random.default_rng(9)
     n = 44100
@@ -538,8 +538,8 @@ def test_stretch_native_block_loop_matches_python(nc, flags, dtype):
     tests anchor both to the reference build)."""
     import unittest.mock as um
 
-    from art_tpu import native
-    from art_tpu.engines.stretch import Stretcher
+    from art_jax import native
+    from art_jax.engines.stretch import Stretcher
 
     if not native.available():
         pytest.skip("native runtime unavailable")
@@ -575,8 +575,8 @@ def test_cli_device_mesh_postfilter_iooverlap_compose(tmp_path):
 
     import numpy as np
 
-    from art_tpu.cli import art
-    from art_tpu.io import wavfile
+    from art_jax.cli import art
+    from art_jax.io import wavfile
 
     rng = np.random.default_rng(23)
     n = 30000
@@ -612,16 +612,16 @@ def test_cli_device_oversize_engine_chunk_single_shape(tmp_path, monkeypatch):
     rows) exceed the CLI's decimator row bucket (ceil(outcap/256)*256 =
     18176): the oversize rows are invalid padding and must be sliced off
     so the fused DeviceDecimator still compiles exactly ONE shape (on a
-    remote-compile deployment every extra shape is a multi-minute stall).
+    compile-per-shape deployment every extra shape is a fresh compile).
     Output parity vs the numpy backend at the documented conv floor."""
     import io as _io
     from contextlib import redirect_stderr
 
     import numpy as np
 
-    from art_tpu.cli import art
-    from art_tpu.engines.decimator import DeviceDecimator
-    from art_tpu.io import wavfile
+    from art_jax.cli import art
+    from art_jax.engines.decimator import DeviceDecimator
+    from art_jax.io import wavfile
 
     rng = np.random.default_rng(11)
     n = 44100
@@ -666,7 +666,7 @@ def test_cli_mesh_requires_device_backend(tmp_path):
     single-device."""
     import pytest
 
-    from art_tpu.cli import art
+    from art_jax.cli import art
 
     with pytest.raises(SystemExit, match="--mesh requires"):
         art.parse_args(["--mesh=8", "-r48k", "in.wav", "out.wav"],
@@ -683,8 +683,8 @@ def test_cli_numeric_args_strtod_semantics(art_ref, tmp_path):
 
     import numpy as np
 
-    from art_tpu.cli import art as art_cli
-    from art_tpu.io import wavfile
+    from art_jax.cli import art as art_cli
+    from art_jax.io import wavfile
 
     rng = np.random.default_rng(3)
     n = 5000
@@ -754,8 +754,8 @@ def test_cli_f64_input_implies_f64_path(tmp_path):
 
     import numpy as np
 
-    from art_tpu.cli import art as art_cli
-    from art_tpu.io import wavfile
+    from art_jax.cli import art as art_cli
+    from art_jax.io import wavfile
 
     rng = np.random.default_rng(9)
     n = 5000
@@ -792,7 +792,7 @@ def test_art_cli_low_rate_stretch_clean_error(tmp_path):
     import io as _io
     from contextlib import redirect_stderr
 
-    from art_tpu.cli import art as art_cli
+    from art_jax.cli import art as art_cli
 
     p = tmp_path / "low.wav"
     with open(p, "wb") as f:

@@ -8,11 +8,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from art_tpu.core.flags import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
+from art_jax.core.flags import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
                                 SUBSAMPLE_INTERPOLATE)
-from art_tpu.engines.resampler import Resampler
-from art_tpu.parallel.streams import DeviceStreamResampler
-from art_tpu.utils.testsig import NoiseLCG
+from art_jax.engines.resampler import Resampler
+from art_jax.parallel.streams import DeviceStreamResampler
+from art_jax.utils.testsig import NoiseLCG
 
 IBL = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS | INCLUDE_LOWPASS
 IB = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS
@@ -79,7 +79,7 @@ def test_device_stream_accepts_interpolated_rational_config():
     # interpolated configs with an exact rational ratio are supported
     # (two banked matmuls + phase lerp); see
     # test_device_interpolated_matches_host for the parity check
-    from art_tpu.core.flags import NO_FILTER_REDUCTION
+    from art_jax.core.flags import NO_FILTER_REDUCTION
     eng = DeviceStreamResampler(2, 380, 380, 44100, 48000, 0,
                                 IBL | NO_FILTER_REDUCTION)
     assert eng.interp and (eng.L, eng.M) == (160, 147)
@@ -104,8 +104,7 @@ def _clean_env(repo):
 
 def test_dryrun_multichip_standalone_like_driver():
     """The hook must bootstrap its own virtual 8-device mesh in a fresh
-    process with NO pre-forced device flags — exactly how the driver calls
-    it (round-1 failure mode: MULTICHIP_r01 ok=false)."""
+    process with NO pre-forced device flags."""
     import subprocess
     import sys
     from pathlib import Path
@@ -143,8 +142,8 @@ def test_dryrun_multichip_after_jax_initialized():
 
 def test_sharded_pipeline_matches_single_device():
     """Sharded (streams x taps) result must equal the unsharded math — the
-    TPU analog of the reference's threaded-vs-unthreaded A/B."""
-    from art_tpu.parallel.sharding import (batched_pipeline_step,
+    multi-device analog of the reference's threaded-vs-unthreaded A/B."""
+    from art_jax.parallel.sharding import (batched_pipeline_step,
                                            example_batch, make_mesh)
     # scaler chosen so some samples genuinely clip (guards the clip-count
     # collective against double reduction over the taps axis)
@@ -182,7 +181,7 @@ def test_hybrid_cli_backend_matches_numpy(tmp_path):
 
     import numpy as np
 
-    from art_tpu.cli import art as art_cli
+    from art_jax.cli import art as art_cli
 
     sr, n, ch = 44100, 60000, 2
     rng = np.random.default_rng(13)
@@ -209,7 +208,7 @@ def test_hybrid_cli_backend_matches_numpy(tmp_path):
     assert len(outs["numpy"]) == len(outs["device"])
     # f32 floor class: the banded-wide contraction reassociates the K sum
     # vs the host's sequential loop (~5e-7 abs at 0.5 scale, proportional
-    # to signal scale — tools/exp_delivery4.py); this clipped-to-1.0
+    # to signal scale); this clipped-to-1.0
     # signal sits at ~1.6e-6
     assert np.abs(outs["numpy"] - outs["device"]).max() < 3e-6
 
@@ -221,9 +220,9 @@ def test_device_interpolated_matches_host():
     config."""
     import jax.numpy as jnp
 
-    from art_tpu.core import flags as F
-    from art_tpu.engines.resampler import Resampler
-    from art_tpu.parallel.streams import DeviceStreamResampler
+    from art_jax.core import flags as F
+    from art_jax.engines.resampler import Resampler
+    from art_jax.parallel.streams import DeviceStreamResampler
 
     rng = np.random.default_rng(3)
     for ch, taps, filt, fl in [
@@ -247,8 +246,8 @@ def test_device_interpolated_matches_host():
 
 
 def test_device_interpolated_rejects_irrational():
-    from art_tpu.core import flags as F
-    from art_tpu.parallel.streams import DeviceStreamResampler
+    from art_jax.core import flags as F
+    from art_jax.parallel.streams import DeviceStreamResampler
     with pytest.raises(ValueError):
         DeviceStreamResampler(2, 380, 380, 44100.5, 48000, 0,
                               F.SUBSAMPLE_INTERPOLATE | F.BLACKMAN_HARRIS
@@ -270,10 +269,10 @@ def test_interp_device_exact_fi_selection_10M_outputs():
     the same continuous read position."""
     import numpy as np
 
-    from art_tpu.core import accounting
-    from art_tpu.core.flags import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
+    from art_jax.core import accounting
+    from art_jax.core.flags import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
                                     SUBSAMPLE_INTERPOLATE)
-    from art_tpu.parallel.streams import DeviceStreamResampler
+    from art_jax.parallel.streams import DeviceStreamResampler
 
     eng = DeviceStreamResampler(
         1, 48, 48, 44100, 48000, 0,
@@ -325,11 +324,11 @@ def test_interp_device_split_path_matches_host():
     import jax.numpy as jnp
     import numpy as np
 
-    from art_tpu.core.flags import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
+    from art_jax.core.flags import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
                                     SUBSAMPLE_INTERPOLATE)
-    from art_tpu.engines.resampler import Resampler
-    from art_tpu.parallel.streams import DeviceStreamResampler
-    from art_tpu.utils.testsig import NoiseLCG
+    from art_jax.engines.resampler import Resampler
+    from art_jax.parallel.streams import DeviceStreamResampler
+    from art_jax.utils.testsig import NoiseLCG
 
     FLAGS = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS | INCLUDE_LOWPASS
     eng = DeviceStreamResampler(1, 48, 48, 44100, 48000, 0, FLAGS)
@@ -377,8 +376,8 @@ def test_device_stream_mesh_matches_single_device(meshspec, config):
     itself is not bit-stable across compilers, -fassociative-math); the
     reference's threaded==unthreaded bitwise guarantee maps to counts +
     positions exact and samples within the documented floor."""
-    from art_tpu.core.flags import NO_FILTER_REDUCTION
-    from art_tpu.parallel.sharding import make_mesh
+    from art_jax.core.flags import NO_FILTER_REDUCTION
+    from art_jax.parallel.sharding import make_mesh
 
     if config == "reduced":
         ctor = (2, 380, 380, 44100, 48000, 0, IBL)
@@ -410,8 +409,8 @@ def test_hybrid_mesh_cli_reachable(tmp_path):
     (--backend=device --mesh=8): output frame counts and file sizes match
     the unsharded device backend exactly; decoded samples at the f32 floor
     (the -o32 float container makes the comparison exact at sample level)."""
-    from art_tpu.cli import art
-    from art_tpu.io import wavfile
+    from art_jax.cli import art
+    from art_jax.io import wavfile
 
     rng = np.random.default_rng(11)
     n = 44100
@@ -439,12 +438,12 @@ def test_hybrid_mesh_cli_reachable(tmp_path):
 
 
 def test_preset4_bank_taps_sharded_through_shipped_engine():
-    """SURVEY §5 'filter too large for one core's VMEM': the preset-4
+    """SURVEY §5 'filter too large for one core': the preset-4
     988-tap bank sharded 2-way on the taps axis through the SHIPPED
     DeviceStreamResampler (the same class art --backend=device --mesh=4x2
     constructs) — counts exact, samples at the f32 floor of the
     single-device engine."""
-    from art_tpu.parallel.sharding import make_mesh
+    from art_jax.parallel.sharding import make_mesh
 
     ctor = (2, 988, 988, 44100, 48000, 0, IBL)
     e1 = DeviceStreamResampler(*ctor)
@@ -470,7 +469,7 @@ def test_sharded_hot_path_has_no_data_collectives():
     permute may ever appear in the hot path."""
     import re
 
-    from art_tpu.parallel.sharding import make_mesh
+    from art_jax.parallel.sharding import make_mesh
 
     def hlo_for(meshspec):
         eng = DeviceStreamResampler(2, 380, 380, 44100, 48000, 0, IBL,
@@ -663,7 +662,7 @@ def test_process_flat_out_and_packed_match_sequential(ctor):
     quantizer (quantize_flat_dev with no dither) + pack on those
     samples, with matching clip counts.  State (hist/position/Ks)
     advances identically across all three engines."""
-    from art_tpu.ops import decimate_device as dd
+    from art_jax.ops import decimate_device as dd
 
     lcg = NoiseLCG()
     ch = ctor[0]
@@ -725,8 +724,8 @@ def test_process_flat_packed_pow2_scaler_matches_f64_route():
     exponent shift) is bit-identical to the quantizer oracle's
     f64-route-and-round product (_mul_for): gain 1.0 configs always
     have scaler = 2^(bits-1), and the delivery path drops the
-    emulated-f64 pointwise chain there (tools/exp_delivery3.py)."""
-    from art_tpu.ops import decimate_device as dd
+    f64 pointwise chain there."""
+    from art_jax.ops import decimate_device as dd
 
     lcg = NoiseLCG()
     ctor = (2, 64, 380, 44100, 48000, 0, IBL)
@@ -764,7 +763,7 @@ def test_process_flat_packed_pow2_scaler_matches_f64_route():
 
 
 def test_process_scan_rejects_mesh_mode():
-    from art_tpu.parallel.sharding import make_mesh
+    from art_jax.parallel.sharding import make_mesh
     eng = DeviceStreamResampler(2, 64, 380, 44100, 48000, 0, IBL,
                                 mesh=make_mesh(8, 1))
     with pytest.raises(NotImplementedError):
@@ -863,7 +862,7 @@ def test_sharded_step_perdevice_flops_scale():
     devices), and taps sharding composes ((4,2) ~ (8,1)).  Complements the
     no-data-collectives HLO test: together they prove the mesh path does
     1/N of the work per device and moves no tensor data for it."""
-    from art_tpu.parallel.sharding import make_mesh
+    from art_jax.parallel.sharding import make_mesh
 
     def per_device_flops(meshspec):
         eng = DeviceStreamResampler(8, 380, 380, 44100, 48000, 0, IBL,
@@ -917,7 +916,7 @@ def test_device_engine_guards_and_flush_latch():
     extrapolation), slices capacity buffers wider than n_in (the invalid
     tail must not enter the history), and latches FLUSHED like the
     reference (input after flush ignored, second flush emits nothing)."""
-    from art_tpu.core.flags import EXTRAPOLATE_ENDPOINTS
+    from art_jax.core.flags import EXTRAPOLATE_ENDPOINTS
 
     with pytest.raises(ValueError, match="EXTRAPOLATE_ENDPOINTS"):
         DeviceStreamResampler(2, 380, 380, 44100, 48000, 0,
@@ -954,7 +953,7 @@ def test_hybrid_advance_midstream_and_scalar_query(tmp_path):
     host copy is stale while steady blocks run on device), and
     get_expected_output answers from the scalar mirrors without pulling
     the device history."""
-    from art_tpu.parallel.streams import HybridStreamResampler
+    from art_jax.parallel.streams import HybridStreamResampler
 
     flags = IBL
     hyb = HybridStreamResampler(2, 48, 48, 44100, 48000, 0, flags)
@@ -1056,12 +1055,6 @@ def test_precise_mode_semantics_and_consistency(ctor):
     np.testing.assert_array_equal(np.asarray(q.hist), np.asarray(p.hist))
 
 
-def test_precise_mode_rejects_pallas():
-    with pytest.raises(ValueError, match="precise"):
-        DeviceStreamResampler(2, 64, 380, 44100, 48000, 0, IBL,
-                              precise=True, pallas_step=True)
-
-
 @pytest.mark.parametrize("ctor", [
     # reduced mode (the headline config class)
     (2, 64, 380, 44100, 48000, 0, IBL),
@@ -1072,12 +1065,12 @@ def test_int8_mode_accuracy_and_invariance(ctor):
     """precise='int8' (int8 fixed-point / Ozaki-split dots,
     ozaki_window_dots docstring): counts/positions identical to the
     default engine; outputs within ~1-2 f32 ulp of the f64-accumulate
-    mode (both are single-rounding-floor schemes; on-chip the measured
-    rel error is 0.305x the default dot's — tools/exp_ozaki.py); and the
+    mode (both are single-rounding-floor schemes); and the
     flat/scan/flat_out group forms advance bitwise-identically to
-    sequential process().  (EFT two_sum combine exactness is validated
-    on-chip; CPU agreement here is an invariance check of the shipped
-    graphs, not the accuracy claim — CLAUDE.md EFT-on-CPU caveat.)"""
+    sequential process().  (The mode's round-trip accuracy is checked on
+    the accelerator by chip_smoke.py; CPU agreement here is an invariance
+    check of the shipped graphs, not the accuracy claim — CLAUDE.md
+    EFT-on-CPU caveat.)"""
     lcg = NoiseLCG()
     ch = ctor[0]
     a = DeviceStreamResampler(*ctor)                      # default
@@ -1139,7 +1132,7 @@ def test_int8_mode_accuracy_and_invariance(ctor):
 
 def test_batched_stream_rows_bitwise_equal_single():
     """Serving N independent mono streams as engine ROWS (the
-    small-config serving form, BENCH_ALL 'serving aggregate' record):
+    small-config serving form, the bench's 'serving aggregate' record):
     each row's outputs are bitwise the 1-row engine's on the same
     stream — rows are independent in the block-Toeplitz contraction, so
     batching changes throughput, never samples."""
@@ -1162,16 +1155,13 @@ def test_batched_stream_rows_bitwise_equal_single():
 
 
 def test_int8_mode_guards():
-    from art_tpu.parallel.sharding import make_mesh
+    from art_jax.parallel.sharding import make_mesh
     with pytest.raises(ValueError, match="f32"):
         DeviceStreamResampler(2, 64, 380, 44100, 48000, 0, IBL,
                               precise="int8", dtype=np.float64)
     with pytest.raises(NotImplementedError, match="single-shard"):
         DeviceStreamResampler(2, 64, 380, 44100, 48000, 0, IBL,
                               precise="int8", mesh=make_mesh(2, 1))
-    with pytest.raises(ValueError, match="precise"):
-        DeviceStreamResampler(2, 64, 380, 44100, 48000, 0, IBL,
-                              precise="int8", pallas_step=True)
 
 
 def test_int8_mode_mixed_plan_scan_fallback():
@@ -1210,8 +1200,8 @@ def test_precise_mode_taps_sharded(config):
     avoid).  Sharded-precise must sit at the f32 rounding floor of
     single-device-precise (not the looser default-dot floor), with
     counts exact."""
-    from art_tpu.core.flags import NO_FILTER_REDUCTION
-    from art_tpu.parallel.sharding import make_mesh
+    from art_jax.core.flags import NO_FILTER_REDUCTION
+    from art_jax.parallel.sharding import make_mesh
 
     if config == "reduced":
         ctor = (2, 380, 380, 44100, 48000, 0, IBL)

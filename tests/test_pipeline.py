@@ -7,11 +7,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from art_tpu.core.flags import (DITHER_FLAT, DITHER_HIGHPASS, DITHER_LOWPASS,
+from art_jax.core.flags import (DITHER_FLAT, DITHER_HIGHPASS, DITHER_LOWPASS,
                                 SHAPING_2ND_ORDER, SHAPING_ATH_CURVE)
-from art_tpu.engines.decimator import Decimator
-from art_tpu.ops import decimate_device as dd
-from art_tpu.ops import decimate_kernel as dk
+from art_jax.engines.decimator import Decimator
+from art_jax.ops import decimate_device as dd
+from art_jax.ops import decimate_kernel as dk
 
 
 def _device_quantize(x, dec: Decimator, K=None):
@@ -116,9 +116,9 @@ def test_sharded_production_step_matches_single_device():
     pack) sharded over a (streams x taps) mesh vs a 1x1 mesh: counts and
     packed bytes bit-equal for a summation-order-invariant phase matrix,
     resampled floats at the f32 floor in general."""
-    from art_tpu.parallel.pipeline import make_sharded_step, pad_phase_matrix
-    from art_tpu.parallel.sharding import make_mesh
-    from art_tpu.engines.decimator import Decimator as D
+    from art_jax.parallel.pipeline import make_sharded_step, pad_phase_matrix
+    from art_jax.parallel.sharding import make_mesh
+    from art_jax.engines.decimator import Decimator as D
 
     M, L, nb, qn, hist_len = 3, 2, 16, 4, 32
     nK = nb * L
@@ -177,8 +177,8 @@ def test_device_decimator_engine_bit_exact():
     is byte-exact vs the host Decimator across dither/shaping modes and
     ragged chunk tails."""
     import numpy as np
-    from art_tpu.core import flags as F
-    from art_tpu.engines.decimator import Decimator, DeviceDecimator
+    from art_jax.core import flags as F
+    from art_jax.engines.decimator import Decimator, DeviceDecimator
 
     rng = np.random.default_rng(3)
     cases = [
@@ -204,8 +204,8 @@ def test_device_decimator_checkpoint_resume():
     """DeviceDecimator state_dict/load_state: the resumed stream emits
     byte-identical packed output."""
     import numpy as np
-    from art_tpu.core import flags as F
-    from art_tpu.engines.decimator import DeviceDecimator
+    from art_jax.core import flags as F
+    from art_jax.engines.decimator import DeviceDecimator
 
     rng = np.random.default_rng(9)
     d = DeviceDecimator(2, 16, 2, 1.0, 44100,
@@ -230,10 +230,10 @@ def test_sharded_production_step_with_post_biquad():
     over every mesh shape == 1x1 mesh bit-for-bit on a passthrough phase
     matrix, and the filtered samples equal the host Biquad cascade at the
     f64-reassociation floor."""
-    from art_tpu.engines.biquad import Biquad, biquad_lowpass
-    from art_tpu.engines.decimator import Decimator as D
-    from art_tpu.parallel.pipeline import make_sharded_step, pad_phase_matrix
-    from art_tpu.parallel.sharding import make_mesh
+    from art_jax.engines.biquad import Biquad, biquad_lowpass
+    from art_jax.engines.decimator import Decimator as D
+    from art_jax.parallel.pipeline import make_sharded_step, pad_phase_matrix
+    from art_jax.parallel.sharding import make_mesh
 
     M, L, nb, qn, hist_len = 3, 2, 16, 4, 32
     nK = nb * L

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from art_tpu import Resampler
-from art_tpu.core.flags import (BLACKMAN_HARRIS, RESAMPLER_FLUSHED,
+from art_jax import Resampler
+from art_jax.core.flags import (BLACKMAN_HARRIS, RESAMPLER_FLUSHED,
                                 SUBSAMPLE_INTERPOLATE)
 
 IB = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS

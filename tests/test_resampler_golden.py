@@ -8,7 +8,7 @@ samples within the float32 rounding floor (bit-exact for passthrough paths).
 import numpy as np
 import pytest
 
-from art_tpu.core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
+from art_jax.core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
                                 INCLUDE_LOWPASS, NO_FILTER_REDUCTION,
                                 SUBSAMPLE_INTERPOLATE)
 from helpers import compare_stream
@@ -78,8 +78,8 @@ def test_varying_ratio_asrc(golden_bin):
     reference process with per-call ratios via repeated single-block dumps is
     impractical — instead assert internal consistency: position recurrence
     matches get_expected_output and round-trips sample counts."""
-    from art_tpu.engines.resampler import Resampler
-    from art_tpu.utils.testsig import NoiseLCG
+    from art_jax.engines.resampler import Resampler
+    from art_jax.utils.testsig import NoiseLCG
     r = Resampler(2, 48, 64, 0.0, I | B)
     lcg = NoiseLCG()
     rng = np.random.default_rng(42)

@@ -7,7 +7,7 @@ import time
 import numpy as np
 import pytest
 
-from art_tpu.parallel import workers as w
+from art_jax.parallel import workers as w
 
 
 def test_null_context_runs_inline():
@@ -133,7 +133,7 @@ def test_debug_counters():
     completions."""
     import time
 
-    from art_tpu.parallel import workers as w
+    from art_jax.parallel import workers as w
 
     pool = w.Workers(2)
     done = []

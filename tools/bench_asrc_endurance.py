@@ -7,8 +7,8 @@ drifts -- the pattern that exposed the round-2 compile-churn bug).
 Verification layers:
   - untimed prologue: two sentinel streams mirrored through independent
     host Resampler engines for several calls -- emission counts must match
-    exactly, samples to the f32 kernel floor (the host mirror runs ~1000x
-    slower than the device engine, so it cannot sit inside the timed loop);
+    exactly, samples to the f32 floor (the host mirror is far slower than
+    the device engine, so it cannot sit inside the timed loop);
   - every timed call: sentinel emission counts re-derived independently
     from the brute-force position grid (pos_k = fl(offset + fl(k/ratio)),
     the reference's emission rule, resampler.c:526) and compared exactly;
@@ -20,6 +20,7 @@ Usage: bench_asrc_endurance.py [calls] [chunk_frames] [--save=PATH]
 Prints one JSON line (sustained M out/s + verification summary).
 """
 import json
+import os
 import sys
 import time
 
@@ -27,10 +28,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
-from art_tpu.core.flags import BLACKMAN_HARRIS, SUBSAMPLE_INTERPOLATE
-from art_tpu.engines.resampler import Resampler
-from art_tpu.parallel.asrc import BatchedASRC
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
+from art_jax.core.flags import BLACKMAN_HARRIS, SUBSAMPLE_INTERPOLATE
+from art_jax.engines.resampler import Resampler
+from art_jax.parallel.asrc import BatchedASRC
 
 args = [a for a in sys.argv[1:] if not a.startswith("--")]
 calls = int(args[0]) if len(args) > 0 else 400
@@ -38,14 +40,14 @@ n = int(args[1]) if len(args) > 1 else 32768
 save = next((a.split("=", 1)[1] for a in sys.argv if a.startswith("--save=")),
             None)
 # --drift=PCT scales the per-stream ratio spread (default 1%: the
-# BASELINE config-5 pattern; 10 exercises the wide-drift Hankel tier —
-# |1/r - 1| up to ~11% stays on the smax=32 kernel, VERDICT r3 item 5)
+# BASELINE config-5 pattern; 10 exercises a wide drift, where the call's
+# capacity bucket moves most)
 drift = float(next((a.split("=", 1)[1] for a in sys.argv
                     if a.startswith("--drift=")), "1")) / 100.0
 
 S, taps, filters = 256, 380, 380
 half = taps // 2
-eng = BatchedASRC(S, taps, filters, kernel="auto", hankel_kb=256)
+eng = BatchedASRC(S, taps, filters)
 eng.advance_position(float(half))
 
 rng = np.random.default_rng(0)

@@ -53,8 +53,8 @@ def main():
         lib.decimateProcessInterleavedLE(cxt, xp, n, op)
     dt_ref = (time.perf_counter() - t0) / reps
 
-    from art_tpu.engines.decimator import Decimator
-    from art_tpu.core import flags as fl
+    from art_jax.engines.decimator import Decimator
+    from art_jax.core import flags as fl
     d = Decimator(ch, 16, 2, 1.0, 44100,
                   fl.DITHER_HIGHPASS | fl.SHAPING_ATH_CURVE,
                   backend="native")
@@ -65,7 +65,7 @@ def main():
     dt_us = (time.perf_counter() - t0) / reps
 
     print(f"C reference (-O3 -mavx2): {n/dt_ref/1e6:7.1f} Mframes/s")
-    print(f"art_tpu native runtime:   {n/dt_us/1e6:7.1f} Mframes/s "
+    print(f"art_jax native runtime:   {n/dt_us/1e6:7.1f} Mframes/s "
           f"({dt_ref/dt_us:.2f}x C)")
 
 

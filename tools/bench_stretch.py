@@ -1,4 +1,4 @@
-"""Stretch (TDHS) throughput: ART-TPU engine vs the stock reference build.
+"""Stretch (TDHS) throughput: ART-JAX engine vs the stock reference build.
 
 Medians of 5, identical 30 s stereo workloads (noise = worst case, short
 detected periods; tone = music-like).  The reference binary is timed on the
@@ -15,9 +15,10 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-from art_tpu.engines.stretch import Stretcher
-from art_tpu.io import wavfile
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
+from art_jax.engines.stretch import Stretcher
+from art_jax.io import wavfile
 
 REF = "/tmp/refstock/art"
 rng = np.random.default_rng(0)

@@ -9,16 +9,18 @@ float64 convolution accumulation, never materially worse).
 
 Usage: fuzz_artest_golden.py LO HI [--f64]
 Idle-time companion to fuzz_cli_golden.py (the ART file-conversion
-fuzzer); run while the TPU service is out.
+fuzzer); needs no accelerator.
 """
 import contextlib
 import io as _io
 import pathlib
 import re
 import subprocess
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
 import numpy as np
 
 REF = pathlib.Path("/root/reference")
@@ -103,7 +105,7 @@ def run_trial(seed, ref_bin):
     opts = gen_trial(rng)
     rp = subprocess.run([str(ref_bin), *opts], capture_output=True,
                         text=True, timeout=900)
-    from art_tpu.cli import artest as at
+    from art_jax.cli import artest as at
     buf = _io.StringIO()
     rc = 0
     with contextlib.redirect_stderr(buf):
@@ -189,7 +191,7 @@ def run_trial(seed, ref_bin):
                 # flag meaningless last-ulp differences
                 continue
             if mm - rr > 0.5:              # one-sided: ours may be better
-                # SAME-RATE TONE DIFF CLASS (tools/exp_1to1_rms.py): at
+                # SAME-RATE TONE DIFF CLASS (PARITY.md): at
                 # ratio exactly 1.0 every output applies the SAME filter
                 # phase, so our exactly-rounded outputs carry a rounding
                 # error partially COHERENT with a tone — it adds linearly
@@ -212,7 +214,7 @@ def run_trial(seed, ref_bin):
                         and mm - rr <= 1.5:
                     print(f"seed {seed}: w5 rms {rr} vs {mm} at ratio 1.0 "
                           "on a tone (coherent-rounding class, "
-                          "exp_1to1_rms.py / PARITY.md) — accepted")
+                          "PARITY.md) — accepted")
                 else:
                     fails.append(f"w{key} rms {rr} vs {mm} (worse by "
                                  f"{mm - rr:.2f} dB)")

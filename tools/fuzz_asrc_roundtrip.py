@@ -1,19 +1,22 @@
-"""Randomized consistency fuzz over the batched-ASRC surfaces: the
-auto-kernel chain (hankel/dense/xla), per-stream flush/teardown, f32+f64,
-mixed geometries and ratio regimes -- every call checked against
-independent per-stream host engines (counts exact, samples at the
-documented floor, positions bit-equal).
+"""Randomized consistency fuzz over the batched-ASRC surfaces:
+per-stream flush/teardown, f32+f64, mixed geometries and ratio regimes --
+every call checked against independent per-stream host engines (counts
+exact, samples at the documented floor, positions bit-equal).
 
 Usage: fuzz_asrc_roundtrip.py [seed] [rounds]
 """
-import numpy as np, sys
+import os
+import sys
+
+import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
-sys.path.insert(0, "/root/repo")
-from art_tpu.parallel.asrc import BatchedASRC
-from art_tpu.engines.resampler import Resampler
-from art_tpu.core.flags import SUBSAMPLE_INTERPOLATE, BLACKMAN_HARRIS
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
+from art_jax.parallel.asrc import BatchedASRC
+from art_jax.engines.resampler import Resampler
+from art_jax.core.flags import SUBSAMPLE_INTERPOLATE, BLACKMAN_HARRIS
 
 rng = np.random.default_rng(int(sys.argv[1]) if len(sys.argv) > 1 else 1)
 rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 25
@@ -28,9 +31,7 @@ for it in range(rounds):
     taps = int(rng.choice([16, 48, 104, 380]))
     filters = int(rng.choice([32, 64, 380, 129]))
     dtype = np.float64 if rng.random() < 0.25 else np.float32
-    b = BatchedASRC(S, taps, filters, dtype=dtype,
-                    hankel_kb=int(rng.choice([128, 256])),
-                    hankel_smax=int(rng.choice([2, 4, 6])))
+    b = BatchedASRC(S, taps, filters, dtype=dtype)
     b.advance_position(float(taps // 2))
     singles = []
     for _ in range(S):

@@ -3,7 +3,7 @@ our `art` CLI vs the strict-IEEE reference build (same recipe as the
 test-suite's art_ref fixture — the parity target is the reference's math,
 not its -fassociative-math build artifacts).
 
-Per trial the comparison is class-aware (PARITY.md's taxonomy):
+Per trial the comparison is class-aware (PARITY.md's parity classes):
   - exit code: always exact; on error the final stderr line must match.
   - WAV header fields + frame counts: always exact.
   - samples: byte-exact when no resampler sits in the chain (gain,
@@ -12,7 +12,7 @@ Per trial the comparison is class-aware (PARITY.md's taxonomy):
     committed test classes: PCM -60 dB, float -110 dB).
   - clip-count warnings: exact in the byte-exact classes.
 
-This is the idle-time CLI bug hunter (run while the TPU service is out),
+This is the CLI bug hunter (host-only, needs no accelerator),
 complementing tools/fuzz_stream_golden.py which fuzzes the library
 surface.  Usage: fuzz_cli_golden.py LO HI [--f64]
 """
@@ -22,10 +22,12 @@ import math
 import pathlib
 import re
 import subprocess
+import os
 import sys
 import tempfile
 
-sys.path.insert(0, "/root/repo")
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
 import numpy as np
 
 REF = pathlib.Path("/root/reference")
@@ -56,7 +58,7 @@ def build_ref(name: str, f64: bool) -> pathlib.Path:
 
 
 def write_wav(path, data, rate, bits):
-    from art_tpu.io import wavfile
+    from art_jax.io import wavfile
     n, ch = data.shape
     mask = (0x5 - ch) if ch <= 2 else (1 << ch) - 1
     with open(path, "wb") as f:
@@ -77,7 +79,7 @@ def write_wav(path, data, rate, bits):
 
 
 def read_wav(path):
-    from art_tpu.io import wavfile
+    from art_jax.io import wavfile
     with open(path, "rb") as f:
         try:
             info = wavfile.read_wav_header(f)
@@ -168,7 +170,7 @@ CLIP_RE = re.compile(r"warning: (\d+) samples? (?:were|was) clipped")
 
 def run_mine(argv):
     """In-process CLI invocation (one interpreter for the whole sweep)."""
-    from art_tpu.cli import art as artcli
+    from art_jax.cli import art as artcli
     err = _io.StringIO()
     with contextlib.redirect_stderr(err):
         try:

@@ -5,7 +5,7 @@ arbitrary fresh seed range, f32 or f64 data path.
 This is the idle-time bug hunter that found the slide-tie count bug
 (seed 5113, fixed by accounting._ring_floor): the in-suite fuzz pins a
 fixed seed set for CI determinism; this tool explores beyond it.  Run it
-whenever waiting on the TPU service.
+on any host (needs no accelerator).
 
 Usage: fuzz_stream_golden.py LO HI [--f64] [--query]
   seeds [LO, HI) are offset by +1000 like the suite (suite covers
@@ -17,18 +17,20 @@ Requires the golden harness (tools/build_golden.sh -> /tmp/art_golden).
 """
 import pathlib
 import subprocess
+import os
 import sys
 import traceback
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
+sys.path.insert(0, os.path.join(_REPO, "tests"))
 import numpy as np
 
 import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from art_tpu.core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
+from art_jax.core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
                                 INCLUDE_LOWPASS, NO_FILTER_REDUCTION,
                                 SUBSAMPLE_INTERPOLATE)
 from helpers import compare_stream
@@ -44,8 +46,8 @@ def compare_queries(golden, *, chans, taps, filters, flags, mode, src, dst,
                     lowpass, ratio, block, nblocks, advance, dtype, nq=8):
     """Drive the golden `query` subcommand and mirror it with the engine's
     simulate_* dry-run queries at every streamed state (exact parity)."""
-    from art_tpu.engines.resampler import Resampler
-    from art_tpu.utils.testsig import NoiseLCG
+    from art_jax.engines.resampler import Resampler
+    from art_jax.utils.testsig import NoiseLCG
 
     raw = subprocess.run(
         [str(golden), "query", str(chans), str(taps), str(filters),
@@ -112,7 +114,7 @@ for seed in range(lo, hi):
         lowpass = float(rng.uniform(0.3, 0.95)) if rng.random() < 0.5 else 0.0
     advance = float(rng.integers(0, taps))
     if flags & SUBSAMPLE_INTERPOLATE and rng.random() < 0.5:
-        from art_tpu.core.filters import plan_fixed_ratio
+        from art_jax.core.filters import plan_fixed_ratio
         keeps_interp = (mode == 0) or bool(
             plan_fixed_ratio(taps, filters, src, dst, lowpass, flags).flags
             & SUBSAMPLE_INTERPOLATE)

@@ -1,6 +1,6 @@
 /* golden_dump.c — test harness that drives the *reference* C library
  * (built out-of-tree from /root/reference, never copied into this repo) and
- * dumps ground-truth data for the art_tpu golden tests.
+ * dumps ground-truth data for the art_jax golden tests.
  *
  * This file is original harness code for this project; it only calls the
  * reference's public APIs.
@@ -14,7 +14,7 @@
  *               <advance> <seed_lo_hex>
  *       mode: 0 = resampleInit (lowpass = ratio vs source nyquist)
  *             1 = resampleFixedRatioInit (lowpass = freq in Hz)
- *       input: LCG noise identical to art_tpu.utils.testsig
+ *       input: LCG noise identical to art_jax.utils.testsig
  *       -> stdout per block: uint32 input_used, uint32 output_generated,
  *          then output_generated*chans samples; final flush block included.
  *

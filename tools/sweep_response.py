@@ -11,17 +11,19 @@ Prints one JSON line per preset with the measured numbers.
 """
 import json
 import math
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
 import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from art_tpu.core import flags as F
-from art_tpu.engines.resampler import Resampler
+from art_jax.core import flags as F
+from art_jax.engines.resampler import Resampler
 
 IB = F.SUBSAMPLE_INTERPOLATE | F.BLACKMAN_HARRIS | F.INCLUDE_LOWPASS
 
